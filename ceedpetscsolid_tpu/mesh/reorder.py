@@ -1,7 +1,7 @@
 """Locality reordering of elements and vertices (SURVEY hard part 1).
 
-Unstructured gather/scatter cost on TPU is dominated by random HBM access
-once the nodal vector exceeds on-chip memory, and contiguous-block
+Unstructured gather/scatter cost is dominated by random device-memory
+access once the nodal vector exceeds the caches, and contiguous-block
 partitioning quality (parallel/partition.py) is set entirely by the element
 order. Default ordering: MORTON space-filling curve over element centroids
 — contiguous index ranges are spatially compact boxes, so per-shard halos

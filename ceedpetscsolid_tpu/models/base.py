@@ -1,11 +1,10 @@
 """Common physics-kernel plumbing.
 
 Kernels are pure functions over quadrature-point batches, the vectorized
-analog of libCEED QFunctions' loops. TPU-first data layout: every 3x3
-tensor field is a `Mat3` — a tuple of nine independent "planes" (arbitrary
-equal batch shapes, typically (nelem, Q3)) — so each elementwise op runs
-over long batch dims in the minor-most (lane) axis at full VPU utilization,
-and planes can be arbitrary VIEWS (e.g. column slices of a single
+analog of libCEED QFunctions' loops. Data layout: every 3x3 tensor field
+is a `Mat3` — a tuple of nine independent "planes" (arbitrary equal batch
+shapes, typically (nelem, Q3)) — so each elementwise op runs over long
+batch dims in the minor-most axis, and planes can be arbitrary VIEWS (e.g. column slices of a single
 (nelem, 9*Q3) GEMM output) without ever materializing a 4D tensor or a
 transpose.
 

@@ -1,32 +1,49 @@
 """ctypes bindings for the native C++ components (csrc/).
 
-The shared library is compiled on demand with g++ if the checked-in .so is
-missing or stale (source newer than binary).
+The shared library is compiled from csrc/amg.cpp with g++ on first use into
+<repo>/.build/, named by a hash of the source, so a changed source always
+gets a fresh build and a fresh checkout never trusts a stale binary.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import numpy as np
 
-_HERE = Path(__file__).parent
-_SRC = _HERE.parent.parent / "csrc" / "amg.cpp"
-_LIB = _HERE / "libamg.so"
+_ROOT = Path(__file__).resolve().parent.parent.parent
+_SRC = _ROOT / "csrc" / "amg.cpp"
+_BUILD = _ROOT / ".build"
 
 
 def _ensure_built() -> Path:
-    if not _LIB.exists() or (
-        _SRC.exists() and _SRC.stat().st_mtime > _LIB.stat().st_mtime
-    ):
-        subprocess.check_call(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-             "-o", str(_LIB), str(_SRC)]
-        )
-    return _LIB
+    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    lib = _BUILD / f"libamg-{digest}.so"
+    if lib.exists():
+        return lib
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(
+            f"g++ not found: it is needed to build {lib.name} from {_SRC}")
+    _BUILD.mkdir(exist_ok=True)
+    # build under a private name, then rename: concurrent first uses (test
+    # workers) never load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+    os.close(fd)
+    try:
+        subprocess.check_call([cxx, "-O3", "-shared", "-fPIC", "-std=c++17",
+                               "-o", tmp, str(_SRC)])
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
 
 
 _lib = None

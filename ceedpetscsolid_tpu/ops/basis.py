@@ -8,11 +8,10 @@ bases).
 
 3D application is by Kronecker structure. Two device paths are provided:
 
-* ``kron`` (default on TPU): the full (Q^3 x P^3) interp matrix and the three
+* ``kron`` (default): the full (Q^3 x P^3) interp matrix and the three
   (Q^3 x P^3) gradient matrices are materialized once at setup; application
-  is a single large batched GEMM, which maps straight onto the MXU. More
-  FLOPs than sum factorization but far better MXU utilization for the tiny
-  P, Q of this workload.
+  is a single large batched GEMM. More FLOPs than sum factorization but one
+  dense matrix-unit-shaped contraction for the tiny P, Q of this workload.
 * ``sumfact``: classic sum-factorized 1D contractions (O(P^2 Q^2 (P+Q))
   work); the libCEED-equivalent algorithm, used as cross-check and for very
   high degree.
@@ -151,9 +150,9 @@ class Basis3D:
         )
 
     # ------------------------------------------------------------------
-    # Device application, COMPONENT-MAJOR (TPU layout: long dims minor).
+    # Device application, COMPONENT-MAJOR (long dims minor).
     # ue: (ncomp, nelem, P3); gradients are (ncomp, 3, nelem, Q3) planes.
-    # Each application is a single MXU contraction over P3.
+    # Each application is a single GEMM contraction over P3.
     # ------------------------------------------------------------------
     def apply_interp(self, ue: jnp.ndarray) -> jnp.ndarray:
         """(ncomp, nelem, P3) -> (ncomp, nelem, Q3)."""

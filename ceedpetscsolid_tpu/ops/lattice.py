@@ -11,26 +11,20 @@ gather/scatter then needs NO index arrays at all:
   strided-index add of the interior tail planes per axis.
 
 Everything is static slices / reshapes / concats — pure bulk memory moves
-that XLA fuses and executes at HBM bandwidth. All internal passes are
-COMPONENT-MAJOR: the minor (lane) axis is the lattice x axis, never the
-3-wide component axis (a component-minor fold runs at 3/128 lane
-utilization — measured ~5x slower on TPU). The (3, nelem, P3) output is
-exactly the component-blocked layout of the fused Pallas apply kernel
-(ops/pallas_apply.py), so the Pallas path needs zero extra transposes.
+that XLA fuses. All internal passes are COMPONENT-MAJOR: the minor axis is
+the lattice x axis, never the 3-wide component axis.
 
 This replaces the row-gather restriction (ops/structured.py) on box
-meshes, where XLA's per-row gather (~12.5 ns/row on TPU) dominates the
-whole matrix-free operator. This is the structured-mesh analog of
-CeedElemRestriction (reference src/setuplibceed.c:194-240) specialized to
-DMPlexCreateBoxMesh-generated grids (reference src/setupdm.c:49-55).
-Exodus/unstructured meshes keep the general entity-row path.
+meshes, where no per-row index gather is needed at all. This is the
+structured-mesh analog of CeedElemRestriction (reference
+src/setuplibceed.c:194-240) specialized to DMPlexCreateBoxMesh-generated
+grids (reference src/setupdm.c:49-55). Exodus/unstructured meshes keep the
+general entity-row path.
 
-Interface-compatible with both ops/restriction.Restriction (gather /
-scatter_add on (ncomp, ...) arrays) and ops/structured.StructuredRestriction
-(gather_rows / scatter_rows on node-major rows, provided as thin transpose
-shims), with the element-local column order being PLAIN LATTICE order
-(x fastest) — callers must build the gradient GEMM matrices with an
-identity `col_lattice`.
+Interface-compatible with ops/restriction.Restriction (gather / scatter_add
+on (ncomp, ...) arrays), with the element-local column order being PLAIN
+LATTICE order (x fastest) — callers must build the gradient GEMM matrices
+with an identity `col_lattice`.
 """
 
 from __future__ import annotations
@@ -110,53 +104,6 @@ class LatticeRestriction:
     def multiplicity(self) -> jnp.ndarray:
         ones = jnp.ones((1, self.nelem, self.P3), dtype=jnp.float32)
         return self.scatter_add(ones)[0]
-
-    # -- StructuredRestriction-compatible row interface (transpose shims) --
-    # NOTE: element-local column order is plain lattice (x fastest); build
-    # the gradient GEMM with col_lattice = arange(P3).
-    def gather_rows(self, u_rows: jnp.ndarray,
-                    e_pad: int | None = None,
-                    cols_pad: int | None = None) -> jnp.ndarray:
-        """(num_nodes, 3) -> (nelem[+pad], P3*3[+pad]) node-major rows."""
-        ue = self.gather(u_rows.T)                    # (3, e, P3)
-        out = ue.transpose(1, 2, 0).reshape(self.nelem, self.P3 * 3)
-        pe = 0 if e_pad is None else max(0, e_pad - out.shape[0])
-        pc = 0 if cols_pad is None else max(0, cols_pad - out.shape[1])
-        if pe or pc:
-            out = jnp.pad(out, ((0, pe), (0, pc)))
-        return out
-
-    def scatter_rows(self, ve: jnp.ndarray) -> jnp.ndarray:
-        """(nelem[+pad], P3*3[+pad]) -> (num_nodes, 3) owner-summed."""
-        ve = ve[:self.nelem, :self.P3 * 3]
-        v3 = ve.reshape(self.nelem, self.P3, 3).transpose(2, 0, 1)
-        return self.scatter_add(v3).T
-
-    # -- class-split shims for the stacked-operand Pallas kernel --------
-    # (lattice ClassSpec: one unpermuted "interior" block of all nodes)
-    def sig_columns(self, e_pad: int):
-        return None, None
-
-    def gather_cls(self, u_rows: jnp.ndarray, e_pad: int) -> dict:
-        return {"ir": self.gather_rows(u_rows, e_pad, self.P3 * 3)}
-
-    def scatter_cls(self, out: dict) -> jnp.ndarray:
-        return self.scatter_rows(out["ir"])
-
-    def gather_cls_cm(self, u: jnp.ndarray, e_pad: int) -> dict:
-        """u (3, num_nodes) -> COMPONENT-BLOCKED rows [u0(P3)|u1|u2]
-        (the stacked-kernel layout contract, see structured.py)."""
-        ue = self.gather(u)                           # (3, e, P3)
-        out = ue.transpose(1, 0, 2).reshape(self.nelem, 3 * self.P3)
-        pe = max(0, e_pad - self.nelem)
-        if pe:
-            out = jnp.pad(out, ((0, pe), (0, 0)))
-        return {"ir": out}
-
-    def scatter_cls_cm(self, out: dict) -> jnp.ndarray:
-        ve = out["ir"][:self.nelem]
-        v3 = ve.reshape(self.nelem, 3, self.P3).transpose(1, 0, 2)
-        return self.scatter_add(v3)
 
     # -- pytree protocol: fully static, no array children ------------------
     def tree_flatten(self):

@@ -6,10 +6,9 @@ exactly the A = G^T B^T D B G decomposition of the reference
 (SURVEY L2; reference src/setuplibceed.c:529-542), jit-compiled as one XLA
 computation so gather/contractions/pointwise physics all fuse.
 
-TPU-first layout: all nodal fields are COMPONENT-MAJOR (ncomp, num_nodes),
-element fields are (ncomp, nelem, P3), and quadrature tensors are
-(3, 3, nelem, Q3) planes — long axes minor-most for full lane utilization
-(see models/base.py).
+Layout: all nodal fields are COMPONENT-MAJOR (ncomp, num_nodes), element
+fields are (ncomp, nelem, P3), and quadrature tensors are (3, 3, nelem, Q3)
+planes — long axes minor-most (see models/base.py).
 
 Geometric qdata (10, nelem, Q3) is computed once from the trilinear
 coordinate basis (reference src/setuplibceed.c:388-389) and shared by
@@ -30,7 +29,6 @@ from ..mesh.fespace import FESpace
 from ..models.base import Mat3
 from . import geometry
 from .basis import Basis3D
-from . import pallas_apply
 from .lattice import LatticeRestriction
 from .restriction import Restriction
 from .spectral import SpectralLattice
@@ -46,28 +44,28 @@ def default_dtype():
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 
-def _has_stash(planes_fn, phys) -> bool:
-    """Abstract-eval the qfunction to learn whether it returns a stash."""
-    d = jax.ShapeDtypeStruct((1, 1), jnp.float32)
-    _, stash = jax.eval_shape(
-        lambda p, q: planes_fn(Mat3([p] * 9), q, phys),
-        d, jax.ShapeDtypeStruct((10, 1, 1), jnp.float32),
-    )
-    return stash is not None
+def element_diagonal(jacobian_qf: Callable, phys, basis: Basis3D, qdata,
+                     stash, dtype) -> jnp.ndarray:
+    """(3, nelem, P3) element-level operator diagonal:
+    diag[c,e,p] = sum_q sum_{d1,d2} Bg[d1,q,p] K[c,d1,c,d2] Bg[d2,q,p]
+    with K's (c, :, c, :) slices extracted by 9 unit-gradient applications
+    of the qfunction, run as one rolled map (the qfunction is traced once,
+    not 9 times, which keeps the compiled setup program small)."""
+    # BB[q, p, d1, d2] = Bg[d1, q, p] * Bg[d2, q, p]
+    BB = jnp.einsum("aqp,bqp->qpab", basis.grad, basis.grad)
+    nelem, Q3 = qdata.shape[1], qdata.shape[2]
 
+    def unit(k):
+        c2, d2 = k // 3, k % 3
+        du = jnp.broadcast_to(
+            (jnp.arange(9) == k).astype(dtype).reshape(3, 3, 1, 1),
+            (3, 3, nelem, Q3))
+        ddv = jacobian_qf(du, qdata, stash, phys)          # (3,3,e,q)
+        Krow = jnp.take(ddv, c2, axis=0)                   # K[c2,d1,c2,d2]
+        return jnp.einsum("qpa,aeq->ep", jnp.take(BB, d2, axis=3), Krow)
 
-def _needs_stash(jacobian_planes, phys) -> bool:
-    """True iff the Jacobian qfunction actually reads its stash argument
-    (linear models ignore it and receive None)."""
-    d = jax.ShapeDtypeStruct((1, 1), jnp.float32)
-    try:
-        jax.eval_shape(
-            lambda p, q: jacobian_planes(Mat3([p] * 9), q, None, phys),
-            d, jax.ShapeDtypeStruct((10, 1, 1), jnp.float32),
-        )
-        return False
-    except Exception:
-        return True
+    contrib = jax.lax.map(unit, jnp.arange(9))             # (9, e, P3)
+    return contrib.reshape(3, 3, nelem, basis.P3).sum(axis=1)
 
 
 @dataclass
@@ -79,10 +77,10 @@ class LevelOps:
     models, the fine residual's stashed gradu), via a P_level -> Q_fine
     basis (reference src/setuplibceed.c:756-757, 782, 829-839).
 
-    NATIVE-QUADRATURE alternative (TPU-first departure from the
-    reference): coarse PRECONDITIONER levels may instead integrate at
-    their own Gauss rule Q_l = degree_l + 1 — 15x fewer quadrature
-    points at p=1 under a p=4 fine level. The linearization state
+    NATIVE-QUADRATURE alternative (a departure from the reference): coarse
+    PRECONDITIONER levels may instead integrate at their own Gauss rule
+    Q_l = degree_l + 1 — 15x fewer quadrature points at p=1 under a p=4
+    fine level. The linearization state
     (stashed gradu, a polynomial fully determined by its fine-Gauss
     values) is re-interpolated EXACTLY onto the level rule
     (`stash_interp`), so no extra state is carried. The V-cycle stays a
@@ -112,51 +110,26 @@ class OperatorFactory:
         qextra: int = 0,
         dtype=None,
         q1d: int | None = None,
-        use_pallas: bool | None = None,
-        block_elems: int = 128,
-        pallas_interpret: bool = False,
-        use_spectral: bool | None = None,
+        use_spectral: bool = True,
     ):
         """q1d overrides the quadrature size — used by the reduced-integration
         pressure operator of hyperFSIncomp (Q = 1 + qextra,
         src/setuplibceed.c:406).
 
-        Hot-path selection for box (lattice) meshes: use_spectral=None
-        auto-enables the global sum-factorized GEMM pipeline
-        (ops/spectral.py) — the fastest measured path on TPU — unless the
-        fused Pallas kernel was explicitly requested. Unstructured meshes
-        use the Pallas fused element kernel on TPU (use_pallas=None
-        auto-enables it there for f32, full quadrature) and the structured
-        single-GEMM path elsewhere."""
+        Hot-path selection: box (lattice) meshes use the global
+        sum-factorized GEMM pipeline (ops/spectral.py) unless
+        use_spectral=False; unstructured meshes use the entity-row
+        single-GEMM path (ops/structured.py)."""
         self.dtype = dtype or default_dtype()
         fine = spaces[-1]
         self.fine_degree = fine.degree
         self.Q1d = q1d if q1d is not None else fine.degree + 1 + qextra  # setuplibceed.c:252
         is_lattice = fine.lattice_dims is not None
-        if use_spectral is None:
-            use_spectral = is_lattice and use_pallas is not True
-        self.use_spectral = use_spectral and is_lattice
-        if self.use_spectral:
-            use_pallas = False
-        elif use_pallas is None:
-            use_pallas = (
-                jax.default_backend() == "tpu"
-                and self.dtype == jnp.float32
-                and self.Q1d ** 3 >= 32
-            )
-        self.use_pallas = use_pallas
-        self.block_elems = block_elems
-        self.pallas_interpret = pallas_interpret
+        self.use_spectral = is_lattice and use_spectral
         self.Q3 = self.Q1d ** 3
         nelem = fine.conn.shape[0]
         self.nelem = nelem
-        # one guaranteed PAD element block: the fused kernel's outputs at
-        # pad rows are exact zeros (zero inputs, zero-weight qdata), so the
-        # class scatter can point its sentinel slots there and skip the
-        # mask multiplies entirely (structured.scatter_cls_cm)
-        self.e_pad = -(-(nelem + 1) // block_elems) * block_elems
         self.levels = []
-        self._cls_specs = []
         for s in spaces:
             basis = Basis3D.create(s.degree + 1, self.Q1d, "gauss", self.dtype)
             lattice = s.lattice_dims is not None
@@ -173,27 +146,15 @@ class OperatorFactory:
                                     node_ranges=s.entity_node_ranges())
                 srestr = StructuredRestriction(smaps)
             spectral = None
-            spec = None
             if lattice and self.use_spectral:
                 spectral = SpectralLattice(s.lattice_dims, s.degree, basis,
                                            self.dtype)
                 sgrad = spectral.matrices()
-            elif use_pallas:
-                if lattice:
-                    spec = pallas_apply.ClassSpec(s.degree, lattice=True)
-                else:
-                    spec = pallas_apply.ClassSpec(
-                        s.degree, smaps.edge_perms if s.degree > 1 else (),
-                        smaps.face_perms if s.degree > 1 else ())
-                es, fs = srestr.sig_columns(self.e_pad)
-                sgrad = pallas_apply.stacked_matrices(
-                    basis, col, spec, self.dtype) + (es, fs)
             elif lattice:
                 # component-batched GEMM on the (3, e, P3) lattice E-vector
                 sgrad = grad_gemm_matrices_cm(basis, col, self.dtype)
             else:
                 sgrad = grad_gemm_matrices(basis, col, self.dtype)
-            self._cls_specs.append(spec if use_pallas else None)
             lvl = LevelOps(
                 space=s, restr=restr, basis=basis, srestr=srestr,
                 sgrad=sgrad, lattice=lattice, spectral=spectral,
@@ -297,13 +258,10 @@ class OperatorFactory:
 
     def struct_qdata(self, qdata) -> jnp.ndarray:
         """qdata as consumed by the structured apply path: global-quadrature
-        layout for the spectral pipeline, lane/row-padded for the Pallas
-        kernel, the plain array otherwise."""
+        layout for the spectral pipeline, the plain array otherwise."""
         if self.use_spectral:
             return self.fine.spectral.qdata_to_global(qdata)
-        if not self.use_pallas:
-            return qdata
-        return pallas_apply.pad_qdata(qdata, self.e_pad)
+        return qdata
 
     def stash_view(self, stash):
         """Expose a structured-path stash as Mat3 of (nelem, Q3) planes for
@@ -312,7 +270,7 @@ class OperatorFactory:
                 and stash.m[0].ndim == 3):
             sp = self.fine.spectral
             return Mat3([sp.plane_to_elem(p) for p in stash.m])
-        return pallas_apply.stash_view(stash, self.nelem, self.Q3)
+        return stash
 
     # ------------------------------------------------------------------
     def make_residual(self, residual_qf: Callable, phys) -> Callable:
@@ -353,12 +311,11 @@ class OperatorFactory:
     def make_residual_structured(self, residual_planes: Callable, phys) -> Callable:
         """(u (3, nnodes), qdata_s, srestr, (Kg, KgT)) -> (residual, stash).
 
-        qdata_s is `struct_qdata(qdata)`. On the Pallas path the stash is a
-        (9, e_pad, Q3p) array (use `stash_view` for Mat3 access); on the XLA
-        path it is the usual Mat3 of (nelem, Q3) planes.
+        qdata_s is `struct_qdata(qdata)`; the stash is a Mat3 of planes (use
+        `stash_view` for the (nelem, Q3) element layout).
         """
         Q3 = self.fine.basis.Q3
-        nelem, e_pad = self.nelem, self.e_pad
+        nelem = self.nelem
         P3 = self.fine.basis.P3
         lattice = self.fine.lattice
         if self.use_spectral:
@@ -371,33 +328,10 @@ class OperatorFactory:
 
             return apply_spectral
 
-        if self.use_pallas:
-            has_stash = _has_stash(residual_planes, phys)
-            fused = pallas_apply.make_fused_apply(
-                residual_planes, phys, P3, Q3,
-                self.nelem, self.dtype, self._cls_specs[-1],
-                stash_in=False, stash_out=has_stash,
-                block_elems=self.block_elems,
-                interpret=self.pallas_interpret,
-            )
-
-            def apply_pl(u, qdata_s, sr, sk):
-                # class-split stacked-operand kernel (pallas_apply
-                # docstring): canonical class rows go straight from the
-                # per-class takes into the kernel, which folds orientation
-                # perms + component de-interleave into its stacked GEMM;
-                # scatter consumes the canonical class outputs directly.
-                cls = sr.gather_cls_cm(u, fused.e_pad)
-                out = fused(cls, qdata_s, sk)
-                res, stash = out if has_stash else (out, None)
-                return sr.scatter_cls_cm(res), stash
-
-            return apply_pl
-
         if lattice:
             def apply_cm(u, qdata, sr, sk):
                 """Component-batched: (3e, P3) @ (P3, 3Q3), planes as
-                views of the c-block/d-column slices (3x fewer MXU flops
+                views of the c-block/d-column slices (3x fewer GEMM flops
                 than the interleaved factorization)."""
                 Kg3, Kg3T = sk
                 ue = sr.gather(u)                          # (3, e, P3)
@@ -430,7 +364,7 @@ class OperatorFactory:
         """(v, qdata_s, stash, srestr_level, (Kg, KgT)_level) -> J@v."""
         Q3 = self.levels[level].basis.Q3
         P3 = self.levels[level].basis.P3
-        nelem, e_pad = self.nelem, self.e_pad
+        nelem = self.nelem
         lattice = self.levels[level].lattice
         if self.use_spectral:
             sp = self.levels[level].spectral
@@ -441,23 +375,6 @@ class OperatorFactory:
                 return sp.grad_T(ddv, mats)
 
             return japply_spectral
-
-        if self.use_pallas:
-            stash_in = _needs_stash(jacobian_planes, phys)
-            fused = pallas_apply.make_fused_apply(
-                jacobian_planes, phys, P3, Q3,
-                self.nelem, self.dtype, self._cls_specs[level],
-                jacobian=True, stash_in=stash_in,
-                block_elems=self.block_elems,
-                interpret=self.pallas_interpret,
-            )
-
-            def japply_pl(v, qdata_s, stash, sr, sk):
-                cls = sr.gather_cls_cm(v, fused.e_pad)
-                res = fused(cls, qdata_s, sk, stash if stash_in else None)
-                return sr.scatter_cls_cm(res)
-
-            return japply_pl
 
         if lattice:
             def japply_cm(v, qdata, stash, sr, sk):
@@ -571,32 +488,16 @@ class OperatorFactory:
     # ------------------------------------------------------------------
     def make_diagonal(self, jacobian_qf: Callable, phys, level: int = -1,
                       native: bool = False) -> Callable:
-        """Assembled operator diagonal at `level` (E1d).
-
-        CeedOperatorLinearAssembleDiagonal analog (src/matops.c:206-244):
-        diag[c,e,p] = sum_q sum_{d1,d2} Bg[d1,q,p] K[c,d1,c,d2] Bg[d2,q,p]
-        where K is the pointwise Jacobian tensor. K's (c, :, c, :) slices are
-        extracted with 9 unit-gradient applications of the qfunction.
-        native=True builds it for the level's own quadrature (qdata/stash
+        """Assembled operator diagonal at `level` (E1d): the
+        CeedOperatorLinearAssembleDiagonal analog (src/matops.c:206-244),
+        `element_diagonal` scatter-added. native=True builds it for the level's own quadrature (qdata/stash
         arguments must then be the nat_* arrays).
         """
         basis = (self.levels[level].nat_basis if native
                  else self.levels[level].basis)
-        # BB[q, p, d1, d2] = Bg[d1, q, p] * Bg[d2, q, p]
-        BB = jnp.einsum("aqp,bqp->qpab", basis.grad, basis.grad)
 
         def apply(qdata, stash, restr):
-            nelem = qdata.shape[1]
-            Q3 = qdata.shape[2]
-            diag_e = jnp.zeros((3, nelem, basis.P3), self.dtype)
-            for c2 in range(3):
-                for d2 in range(3):
-                    du = jnp.zeros((3, 3, nelem, Q3), self.dtype)
-                    du = du.at[c2, d2].set(1.0)
-                    ddv = jacobian_qf(du, qdata, stash, phys)  # (3,3,e,q)
-                    Krow = ddv[c2]                             # (3,e,q)=K[c2,d1,c2,d2]
-                    contrib = jnp.einsum("qpa,aeq->ep", BB[..., d2], Krow)
-                    diag_e = diag_e.at[c2].add(contrib)
-            return restr.scatter_add(diag_e)
+            return restr.scatter_add(element_diagonal(
+                jacobian_qf, phys, basis, qdata, stash, self.dtype))
 
         return apply

@@ -3,7 +3,7 @@
 The CeedElemRestriction analog (reference src/setuplibceed.c:194-240).
 Component-major layout: L-vectors are (ncomp, num_nodes), E-vectors are
 (ncomp, nelem, P3) — the long node/element axes sit minor-most so gathers
-and segment-sums vectorize over full TPU lanes.
+and segment-sums vectorize over them.
 
 Unlike the reference, constrained (Dirichlet) DOFs are NOT encoded as
 negative indices; boundary conditions are applied by masking at the solver
@@ -18,8 +18,8 @@ import numpy as np
 
 # Restriction is registered as a jax pytree so its O(nelem) index arrays can
 # be passed through jit boundaries as ARGUMENTS rather than being baked into
-# the compiled module as constants (which inflates the HLO payload by
-# hundreds of MB on large meshes and breaks remote compilation).
+# the compiled module as constants (which would inflate every compiled
+# program by hundreds of MB on large meshes).
 
 
 class Restriction:
@@ -31,8 +31,8 @@ class Restriction:
     per contiguous node-id range of roughly uniform multiplicity (the
     [vertices | edges | faces | cell-interiors] entity ranges of
     mesh/fespace.py are ideal: K = ~8 / ~4 / 2 / 1). At runtime the
-    scatter becomes K row-gathers + adds per range — on TPU this is ~2.5x
-    faster than XLA's index-serial scatter-add, and bitwise deterministic.
+    scatter becomes K row-gathers + adds per range: bitwise deterministic,
+    unlike an atomic scatter-add.
     """
 
     def __init__(self, conn: np.ndarray, num_nodes: int,
@@ -70,9 +70,8 @@ class Restriction:
     def gather(self, u: jnp.ndarray) -> jnp.ndarray:
         """(ncomp, num_nodes) -> (ncomp, nelem, P3).
 
-        Gathers through row-major (num_nodes, ncomp) — on TPU a gather along
-        a non-minor axis moves whole rows and is ~2x faster than gathering
-        lanes from the (ncomp, num_nodes) layout; the transposes fuse.
+        Gathers whole rows of the row-major (num_nodes, ncomp) view; the
+        transposes fuse.
         """
         rows = jnp.take(u.T, self.conn, axis=0)       # (nelem, P3, ncomp)
         return jnp.moveaxis(rows, -1, 0)

@@ -18,14 +18,13 @@ performs the owner-sum scatter automatically, so the E-vector
 (gather/pad/scatter of ops/lattice.py, and the index arrays of
 ops/restriction.py) never exists at all.
 
-This is the TPU-native endpoint of the restriction design: the hot path is
-16 dense GEMMs over full-lattice arrays (8 forward, 8 adjoint, with the
-shared interp passes factored), every contraction dim >= N_axis ~ 100
-(MXU-shaped), and zero scatter/gather/transpose traffic. The banded
-matrices are applied DENSE: the extra multiply-by-zero flops
-(N_axis/P per output) are MXU-free compared to the HBM cost of any
-indexed alternative (the component-major fold/unfold measured 9-16 GB/s
-effective on v5e; this path runs at GEMM speed).
+This is the endpoint of the restriction design: the hot path is 16 dense
+GEMMs over full-lattice arrays (8 forward, 8 adjoint, with the shared
+interp passes factored), every contraction dim >= N_axis ~ 100, and zero
+scatter/gather/transpose traffic. The banded matrices are applied DENSE:
+the extra multiply-by-zero flops (N_axis/P per output) trade against the
+memory traffic of any indexed alternative. Whether that trade pays on a
+GPU has not been measured yet.
 
 Physics planes and qdata live in GLOBAL-QUADRATURE layout (Qz, Qy, Qx)
 instead of element-major (nelem, Q3); `qdata_to_global` / `plane_to_elem`

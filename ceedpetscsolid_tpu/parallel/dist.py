@@ -103,7 +103,7 @@ def g2l_finish(ow, recv, sa: ShardArrays):
 def g2l(owned, sa: ShardArrays):
     """(1, c, n_owned_max) -> (c, n_local): fill owned + exchange ghosts.
 
-    Component-major: the node axis is minor-most (full TPU lanes)."""
+    Component-major: the node axis is minor-most."""
     ow, recv = g2l_start(owned, sa)
     return g2l_finish(ow, recv, sa)
 

@@ -29,7 +29,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from . import dist, mg as dmg, slab as slab_mod
 from ..models.base import Mat3
+from ..ops.operator import element_diagonal
 from ..ops.structured import grad_gemm_matrices
+from ..solve.cg import chebyshev
 from ..solve.newton import NewtonOptions, NewtonPolicy
 from ..utils.precise import accurate_matmuls
 from .dist import AXIS, ShardArrays
@@ -84,25 +86,6 @@ class DistributedProblem:
         self.phys = prob.phys
         self.dtype = prob.dtype
 
-        # qdata (10, nelem, Q3) -> (ndev, 10, nelem_max, Q3), zero padding
-        qd = np.asarray(prob.qdata)
-        self.qdata_sh = jnp.asarray(self._pad_qdata(qd))
-        self.composite = prob.composite
-        if self.composite:
-            # reduced-integration pressure operator data (Q=1 qdata +
-            # per-level P->1 gradient GEMMs, src/setuplibceed.c:404-506)
-            self.qdata_p_sh = jnp.asarray(
-                self._pad_qdata(np.asarray(prob.qdata_p)))
-        else:
-            self.qdata_p_sh = None
-
-        self.mask_sh = jnp.asarray(
-            scatter_global_to_owned(self.part, np.asarray(prob.bc_mask))
-        )
-        self.F_sh = jnp.asarray(
-            scatter_global_to_owned(self.part, np.asarray(prob.F))
-        )
-
         devs = self.devices or jax.devices()[: self.ndev]
         if len(devs) != self.ndev:
             raise ValueError(
@@ -110,6 +93,25 @@ class DistributedProblem:
                 f"have {len(devs)} (set xla_force_host_platform_device_count)"
             )
         self.mesh = Mesh(np.array(devs), (AXIS,))
+
+        # qdata (10, nelem, Q3) -> (ndev, 10, nelem_max, Q3), zero padding
+        qd = np.asarray(prob.qdata)
+        self.qdata_sh = self._shard(self._pad_qdata(qd))
+        self.composite = prob.composite
+        if self.composite:
+            # reduced-integration pressure operator data (Q=1 qdata +
+            # per-level P->1 gradient GEMMs, src/setuplibceed.c:404-506)
+            self.qdata_p_sh = self._shard(
+                self._pad_qdata(np.asarray(prob.qdata_p)))
+        else:
+            self.qdata_p_sh = None
+
+        self.mask_sh = self._shard(
+            scatter_global_to_owned(self.part, np.asarray(prob.bc_mask))
+        )
+        self.F_sh = self._shard(
+            scatter_global_to_owned(self.part, np.asarray(prob.F))
+        )
 
         if self.use_mg:
             self.levels = dmg.build_dist_levels(prob, self.part, self.ndev)
@@ -165,11 +167,16 @@ class DistributedProblem:
         return out
 
     # -- host-side converters ------------------------------------------
+    def _shard(self, arr: np.ndarray) -> jnp.ndarray:
+        """Host (ndev, ...) array -> device array sharded on its leading
+        axis, each shard copied straight to its own device (never first
+        materialised whole on device 0)."""
+        return jax.device_put(np.asarray(arr),
+                              NamedSharding(self.mesh, P(AXIS)))
+
     def to_owned(self, u_global: np.ndarray) -> jnp.ndarray:
-        arr = scatter_global_to_owned(self.part, np.asarray(u_global))
-        return jax.device_put(
-            jnp.asarray(arr), NamedSharding(self.mesh, P(AXIS))
-        )
+        return self._shard(
+            scatter_global_to_owned(self.part, np.asarray(u_global)))
 
     def to_global(self, owned) -> np.ndarray:
         return gather_owned_to_global(self.part, np.asarray(owned))
@@ -336,12 +343,10 @@ class DistributedProblem:
                 smats, smats_p = smats2
                 return qdl, qdpl, isf, toff, smats, smats_p
 
-            # round-4 halo: the slab interface is ONE node plane, so the
+            # slab halo: the slab interface is ONE node plane, so the
             # general all_to_all ghost machinery is replaced by a neighbor
-            # ppermute of that plane (slab_mod.halo_fwd/halo_adj) — ~7 ms
-            # of the 12 ms ndev=1 SPMD overhead was the g2l assembly and
-            # adjoint shuffle (results/DIST1_PROFILE.json); ndev == 1 is a
-            # statically comm-free specialization.
+            # ppermute of that plane (slab_mod.halo_fwd/halo_adj); ndev == 1
+            # is a statically comm-free specialization.
             def slab_residual(u_in, sa_, slabd, smats2):
                 qdl, qdpl, isf, toff, smats, smats_p = slab_unpack(
                     slabd, smats2)
@@ -393,17 +398,8 @@ class DistributedProblem:
             return jax.tree_util.tree_map(ssp.plane_to_elem, stash)
 
         def elem_diagonal(qdata, stash, basis, jac_qf):
-            BB = jnp.einsum("aqp,bqp->qpab", basis.grad, basis.grad)
-            nelem, Q3 = qdata.shape[1], qdata.shape[2]
-            diag_e = jnp.zeros((3, nelem, basis.P3), self.dtype)
-            for c2 in range(3):
-                for d2 in range(3):
-                    du = jnp.zeros((3, 3, nelem, Q3), self.dtype)
-                    du = du.at[c2, d2].set(1.0)
-                    ddv = jac_qf(du, qdata, stash, phys)
-                    contrib = jnp.einsum("qpa,aeq->ep", BB[..., d2], ddv[c2])
-                    diag_e = diag_e.at[c2].add(contrib)
-            return diag_e
+            return element_diagonal(jac_qf, phys, basis, qdata, stash,
+                                    self.dtype)
 
         # --- shared in-shard building blocks -----------------------------
         def full_residual(u, bc_vals, F, mask, qd, qdp, sa_, sgrads, sgrads_p,
@@ -423,8 +419,8 @@ class DistributedProblem:
         def fine_jac_apply(v, stash, mask, qd, qdp, sa_, sgrads, sgrads_p,
                            slabd, smats2):
             # outer Krylov matvec: full-f32 precision (the CG attainable
-            # residual stalls at matvec-noise x cond with the bf16-default
-            # MXU passes); smoother-level applies stay at the fast default
+            # residual stalls at matvec-noise x cond with reduced-precision
+            # GEMMs); smoother-level applies stay at the fast default
             with accurate_matmuls():
                 v_in = jnp.where(mask, 0.0, v)
                 if slab is not None:
@@ -552,7 +548,7 @@ class DistributedProblem:
 
                 def coarse_solve(b0):
                     if amg_data is None:
-                        return dmg.chebyshev_dist(
+                        return chebyshev(
                             lvl_apply[0], b0, dinvs[0],
                             bounds[0][0], bounds[0][1], 30,
                         )
@@ -572,7 +568,7 @@ class DistributedProblem:
                     xs = [None] * nlev
                     bs[-1] = bf
                     for l in range(nlev - 1, 0, -1):
-                        xs[l] = dmg.chebyshev_dist(
+                        xs[l] = chebyshev(
                             lvl_apply[l], bs[l], dinvs[l],
                             bounds[l][0], bounds[l][1], cfg.smooth_its,
                         )
@@ -582,7 +578,7 @@ class DistributedProblem:
                     for l in range(1, nlev):
                         x = xs[l] + prolong_l(l, xs[l - 1])
                         r = bs[l] - lvl_apply[l](x)
-                        dx = dmg.chebyshev_dist(
+                        dx = chebyshev(
                             lvl_apply[l], r, dinvs[l],
                             bounds[l][0], bounds[l][1], cfg.smooth_its,
                         )
@@ -692,11 +688,9 @@ class DistributedProblem:
 
         def _accurate(fn):
             """Trace the whole SPMD computation at full-f32 matmul
-            precision: PCG needs SYMMETRIC A and M, and bf16-default MXU
-            noise breaks the symmetry of every operator apply inside the
-            V-cycle (measured: Newton ground through 14-44 iterations per
-            increment on TPU vs 4-5 with true-f32 GEMMs — see
-            utils/precise.accurate_matmuls)."""
+            precision: PCG needs SYMMETRIC A and M, and reduced-precision
+            GEMM noise breaks the symmetry of every operator apply inside
+            the V-cycle (see utils/precise.accurate_matmuls)."""
             def wrapped(*args):
                 with accurate_matmuls():
                     return fn(*args)

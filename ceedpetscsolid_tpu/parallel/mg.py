@@ -26,6 +26,7 @@ import numpy as np
 from ..ops.basis import Basis3D
 from . import dist
 from .dist import AXIS, ShardArrays
+from ..solve.cg import lanczos_extreme_eigs
 from .partition import partition_space, scatter_global_to_owned
 
 
@@ -129,25 +130,6 @@ def replicated_global_to_owned(g, owned_gid):
     return jnp.take(g, dist._blk(owned_gid), axis=1)[None]
 
 
-def chebyshev_dist(A, b, dinv, lo, hi, iters):
-    """Chebyshev smoothing with distributed operator (owned-block vectors)."""
-    theta = 0.5 * (hi + lo)
-    delta = 0.5 * (hi - lo)
-    sigma1 = theta / delta
-    rho = 1.0 / sigma1
-    x = jnp.zeros_like(b)
-    r = b
-    d = (dinv * r) / theta
-    x = x + d
-    for _ in range(iters - 1):
-        r = b - A(x)
-        rho_new = 1.0 / (2.0 * sigma1 - rho)
-        d = rho_new * rho * d + (2.0 * rho_new / delta) * (dinv * r)
-        rho = rho_new
-        x = x + d
-    return x
-
-
 def estimate_eigs_dist(A, dinv, shape, dtype, valid=None, iters=10):
     """Distributed CG-Lanczos extreme-eigenvalue estimate (bounds transform
     0.1/1.1 as elasticity.c:540). `valid` masks out BC/padding slots from
@@ -160,29 +142,5 @@ def estimate_eigs_dist(A, dinv, shape, dtype, valid=None, iters=10):
          / 65536.0) - 0.5
     if valid is not None:
         r = jnp.where(valid, r, 0.0)
-    x = jnp.zeros(shape, dtype)
-    z = dinv * r
-    p = z
-    rz = dist.ddot(r, z)
-    alphas, betas = [], []
-    for _ in range(iters):
-        Ap = A(p)
-        pAp = dist.ddot(p, Ap)
-        alpha = rz / pAp
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = dinv * r
-        rz2 = dist.ddot(r, z)
-        beta = rz2 / rz
-        alphas.append(alpha)
-        betas.append(beta)
-        p = z + beta * p
-        rz = rz2
-    al = jnp.stack(alphas)
-    be = jnp.stack(betas)
-    diag = 1.0 / al
-    diag = diag.at[1:].add(be[:-1] / al[:-1])
-    off = jnp.sqrt(jnp.abs(be[:-1])) / al[:-1]
-    T = jnp.diag(diag) + jnp.diag(off, 1) + jnp.diag(off, -1)
-    eigs = jnp.linalg.eigvalsh(T)
-    return 0.1 * eigs[-1], 1.1 * eigs[-1]
+    _, lmax = lanczos_extreme_eigs(A, dinv, r, iters, dot=dist.ddot)
+    return 0.1 * lmax, 1.1 * lmax

@@ -1,7 +1,7 @@
 """Mesh partitioning for SPMD execution over a jax device mesh.
 
 The DMPlexDistribute + PetscSF equivalent (reference src/setupdm.c:57-64 and
-matops.c:33/57), redesigned TPU-first: all exchange patterns are computed at
+matops.c:33/57), redesigned for jit: all exchange patterns are computed at
 setup into static, padded index arrays that compile into the jitted step as
 all_to_all collectives — no host round-trips, deterministic owner ordering.
 

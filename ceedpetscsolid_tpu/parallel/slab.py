@@ -123,11 +123,10 @@ class SlabSpectral:
 
 
 # ---------------------------------------------------------------------------
-# ppermute halo (round-4): the slab halo is ONE interface plane per
-# neighbor pair, so the general all_to_all + ghost-slot assembly of
-# dist.g2l/l2g_add (profiled at ~7 ms of the 12 ms ndev=1 overhead,
-# results/DIST1_PROFILE.json) is replaced by a neighbor ppermute of the
-# plane plus static-slice arithmetic. ndev == 1 is a static no-comm
+# ppermute halo: the slab halo is ONE interface plane per neighbor pair, so
+# the general all_to_all + ghost-slot assembly of dist.g2l/l2g_add is
+# replaced by a neighbor ppermute of the plane plus static-slice
+# arithmetic. ndev == 1 is a static no-comm
 # specialization (what a single-chip production run executes).
 #
 # Plane ownership (see module docstring): the interface plane between
@@ -201,9 +200,8 @@ def lattice_from_local(local, sa, isf, NP: int, NyNx: int):
     else:                                      # ndev == 1: no exchange
         ghost = jnp.zeros((c, NyNx), local.dtype)
     cat = jnp.concatenate([ghost, local[:, : sa.n_owned_max]], axis=1)
-    # two STATIC slices + select: a dynamic_slice with a lane-unaligned
-    # traced start (NyNx is rarely a multiple of 128) forces a slow
-    # relayout copy on TPU
+    # two STATIC slices + select instead of a dynamic_slice with a traced
+    # start
     n = NP * NyNx
     return jnp.where(isf > 0, cat[:, NyNx: NyNx + n], cat[:, :n])
 

@@ -46,16 +46,17 @@ def ell_matvec(idx, vals, x):
 class AMGPreconditioner:
     """Owns the native hierarchy handle + device ELL/dense arrays.
 
-    TPU-shaped cycle (VERDICT r3 #2): tiny sparse gathers are LATENCY-bound
-    on TPU, so the per-level matvec picks the fastest representation:
+    Tiny sparse gathers are latency-bound on an accelerator, so the
+    per-level matvec picks a dense representation where it can:
 
       * level 0 with `top_mf=True`: the caller passes `top_matvec` to
-        `apply` — the existing matrix-free p=1 operator (MXU GEMM
+        `apply` — the existing matrix-free p=1 operator (GEMM
         pipeline). The assembled level-0 matrix is then never uploaded at
         all (it IS the Galerkin matrix of that operator, ops/assembly.py),
         which also removes the dominant d2h traffic from every refresh.
-      * levels with n <= dense_n: dense (n, n) matrix — an MXU matvec
-        beats an ELL gather by orders of magnitude at these sizes.
+      * levels with n <= dense_n: dense (n, n) matrix — a dense matvec
+        instead of an ELL gather at these sizes (dense_n was tuned on the
+        old accelerator; not re-measured on a GPU).
       * remaining mid-size levels: padded ELL (the general fallback).
     """
 
@@ -110,7 +111,8 @@ class AMGPreconditioner:
     def _level_rep(self, l: int, nlev: int, n: int) -> str:
         """Representation of level l's operator: 'none' (coarsest — solved
         by coarse_inv), 'mf' (level 0 applied matrix-free by the caller),
-        'dense' (small level on the MXU), or 'ell' (general fallback)."""
+        'dense' (small level as a dense matvec), or 'ell' (general
+        fallback)."""
         if l == nlev - 1:
             return "none"
         if l == 0 and self.top_mf:
@@ -240,7 +242,7 @@ class AMGPreconditioner:
         when the hierarchy was built with top_mf=True (the caller supplies
         the matrix-free p=1 apply, e.g. the p-MG level-0 operator closed
         over the current Newton stash — bitwise the same Galerkin matrix
-        up to roundoff, at MXU GEMM speed instead of ELL gathers)."""
+        up to roundoff, at GEMM speed instead of ELL gathers)."""
         sm = self.smooth_its
         levels = data["levels"]
         nlev = len(levels)

@@ -1,8 +1,8 @@
-"""Double-float (compensated) reductions for the f32 TPU path.
+"""Double-float (compensated) reductions for the f32 path.
 
-SURVEY hard-part 5: TPU compute/storage stays f32, but the CG/Newton
-reduction scalars need f64-grade accuracy to honor the reference's
-tolerance contract (CG natural-norm rtol 1e-10, elasticity.c:504-507).
+SURVEY hard-part 5: f32 compute/storage, but the CG/Newton reduction
+scalars need f64-grade accuracy to honor the reference's tolerance
+contract (CG natural-norm rtol 1e-10, elasticity.c:504-507).
 A naive f32 dot over ~1e6 entries carries O(log n * u) rounding from the
 XLA tree reduce PLUS cancellation amplification when r.z is small against
 |r||z| -- which is exactly the late-CG regime. This module implements the
@@ -16,8 +16,8 @@ for any realistic vector) out of pure f32 ops:
 Cost: ~20 flops/element over 2 passes -- noise next to one operator apply
 (hundreds of flops/DoF), and entirely fused by XLA.
 
-On f64 inputs (CPU verification path) all entry points degrade to plain
-jnp ops: f64 is already the reference precision.
+On f64 inputs all entry points degrade to plain jnp ops: f64 is already
+the reference precision.
 """
 
 from __future__ import annotations
@@ -31,22 +31,19 @@ import jax.numpy as jnp
 
 def accurate_matmuls():
     """Context manager for the accuracy-critical compute paths: Newton
-    residual, geometry qdata, forcing, energy/diagnostics.
+    residual, outer Krylov matvec, geometry qdata, forcing,
+    energy/diagnostics.
 
-    XLA's DEFAULT f32 matmul precision on TPU is a single bf16 MXU pass
-    (eps ~4e-3). For FEM residuals that is catastrophic, not cosmetic —
-    the basis-contraction GEMMs of a near-equilibrium state cancel to
-    ~1e-6 of their operand magnitudes, so bf16 noise DOMINATES the true
-    residual. Measured on cyl-hole_3140e deg2 hyperFS (E=1e6): residual
-    norm 1.43e8 at default precision vs 8.13e6 at highest vs 7.99e6 in
-    f64 — the default-precision "residual" is 18x pure noise.
-
-    HIGHEST runs f32 matmuls as 6 bf16 passes (true-f32 grade). The
-    preconditioner paths (Jacobian action inside CG, smoothers, diagonals,
-    eig probes) deliberately KEEP the fast default: their error only
-    perturbs the Newton direction, which the accurate-residual outer loop
-    corrects (the inexact-Newton forcing-term argument) — that is where
-    the MXU speed is, and where accuracy is not load-bearing.
+    XLA's DEFAULT f32 matmul precision on a GPU is TF32 on the tensor cores
+    (10-bit mantissa, eps ~1e-3). For FEM residuals that is not cosmetic:
+    the basis-contraction GEMMs of a near-equilibrium state cancel to a
+    small fraction of their operand magnitudes, so rounding noise of that
+    size can dominate the true residual. HIGHEST runs f32 matmuls in IEEE
+    f32 (off the tensor cores); chip_smoke.py phase D checks both on the
+    card. The preconditioner paths (smoothers, transfers, diagonals, eig
+    probes) keep the fast default: their error only perturbs the Newton
+    direction, which the accurate-residual outer loop corrects (the
+    inexact-Newton forcing-term argument). f64 GEMMs are unaffected.
 
     Override with CPSTPU_RESIDUAL_PRECISION=default|high|highest.
     """
@@ -57,8 +54,8 @@ def accurate_matmuls():
 
 # Dekker splitter for binary32: 2^ceil(24/2) + 1. A plain Python float
 # (weak type) so importing this module does NOT touch the backend: creating
-# a jnp array at import time would initialize the TPU platform before
-# callers (tests, dryrun_multichip) can force the CPU backend.
+# a jnp array at import time would initialize a platform before callers
+# (tests, dryrun_multichip) can choose one.
 _SPLIT_F32 = 4097.0
 
 

@@ -3,7 +3,7 @@
 // Native (C++) replacement for the capability the reference gets from
 // PETSc's GAMG (reference elasticity.c:568-585: PREONLY+GAMG coarse solve
 // of the assembled p=1 matrix; also the whole PC at degree 1,
-// elasticity.c:519-521). The numerical CYCLE runs on the TPU inside jit
+// elasticity.c:519-521). The numerical CYCLE runs on the device inside jit
 // (solve/amg.py); this library owns the irregular, pointer-chasing setup:
 // strength graph, greedy aggregation, prolongator smoothing, Galerkin
 // triple products, and value-only refreshes with a frozen hierarchy so the

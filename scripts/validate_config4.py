@@ -3,18 +3,16 @@
 The reference's flagship workload: hyperFS, cyl-hole_3140e_2ss_us.exo,
 degree 4, clamp faces 998/999 with translate (0,0,0.2) + rotate (0,0,1)
 by 0.2*pi on 998, 10 load increments (elasticity.c:636-765,
-boundary.c:53-74). Round 2 recorded `converged: false, rnorm: NaN` on TPU
-f32 with no f64 anchor. This script produces both:
+boundary.c:53-74). This script produces:
 
   * an f64 oracle (CPU backend; full config or a reduced-degree variant),
-  * TPU runs bisected across hot paths (fused Pallas vs XLA row) and
-    precision (f32 vs emulated f64),
+  * GPU runs in f32 and f64 against it,
 
 appending each record to results/CONFIG4_ORACLE.json.
 
 Usage: python scripts/validate_config4.py VARIANT [VARIANT...]
-  variants: cpu64-deg2 cpu64-deg3 cpu64-deg4 tpu32-deg2 tpu32-deg4
-            tpu32-deg4-row tpu64-deg4
+  variants: cpu64-deg2 cpu32-deg2 cpu64-deg3 cpu64-deg4 cpu32-deg4
+            gpu32-deg2 gpu32-deg4 gpu64-deg4
 Env: CPSTPU_INCREMENTS overrides num_increments (default 10).
 """
 
@@ -32,21 +30,20 @@ MESH = "/root/reference/meshes/cyl-hole_3140e_2ss_us.exo"
 OUT = Path(__file__).parent.parent / "results" / "CONFIG4_ORACLE.json"
 
 VARIANTS = {
-    # name: (backend, x64, degree, use_pallas)
-    "cpu64-deg2": ("cpu", True, 2, None),
-    "cpu32-deg2": ("cpu", False, 2, None),
-    "cpu64-deg3": ("cpu", True, 3, None),
-    "cpu64-deg4": ("cpu", True, 4, None),
-    "cpu32-deg4": ("cpu", False, 4, None),
-    "tpu32-deg2": ("tpu", False, 2, None),
-    "tpu32-deg4": ("tpu", False, 4, None),
-    "tpu32-deg4-row": ("tpu", False, 4, False),
-    "tpu64-deg4": ("tpu", True, 4, None),
+    # name: (backend, x64, degree)
+    "cpu64-deg2": ("cpu", True, 2),
+    "cpu32-deg2": ("cpu", False, 2),
+    "cpu64-deg3": ("cpu", True, 3),
+    "cpu64-deg4": ("cpu", True, 4),
+    "cpu32-deg4": ("cpu", False, 4),
+    "gpu32-deg2": ("gpu", False, 2),
+    "gpu32-deg4": ("gpu", False, 4),
+    "gpu64-deg4": ("gpu", True, 4),
 }
 
 
 def run(name):
-    backend, x64, degree, use_pallas = VARIANTS[name]
+    backend, x64, degree = VARIANTS[name]
     if backend == "cpu":
         jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", x64)
@@ -60,8 +57,7 @@ def run(name):
                  bc_clamp=(998, 999),
                  bc_clamp_translate={998: (0.0, 0.0, 0.2)},
                  bc_clamp_rotate={998: (0.0, 0.0, 1.0, 0.2)},
-                 ksp_rtol=1e-10 if x64 else 1e-6,
-                 use_pallas=use_pallas)
+                 ksp_rtol=1e-10 if x64 else 1e-6)
     if not x64:
         cfg.newton.rtol = 1e-6
     stop_load = os.environ.get("CPSTPU_STOP_LOAD")
@@ -106,7 +102,6 @@ def run(name):
         "backend": jax.default_backend(),
         "x64": bool(jax.config.jax_enable_x64),
         "degree": degree,
-        "use_pallas": prob.factory.use_pallas,
         "num_increments": ninc,
         "dofs": info.dofs,
         "snes_iters": info.snes_iters,

@@ -72,8 +72,8 @@ def test_amg_refresh_keeps_pattern_and_quality():
 
 
 def test_amg_representations_agree():
-    """The TPU-shaped cycle (matrix-free top level + dense small levels,
-    VERDICT r4) must produce the SAME preconditioner action as the plain
+    """The dense-shaped cycle (matrix-free top level + dense small levels)
+    must produce the SAME preconditioner action as the plain
     ELL hierarchy, up to roundoff: same native setup, different device
     representations (solve/amg.py _level_rep)."""
     cfg = Config(problem="linElas", degree=1, nu=0.3, E=1.0, test_mode=True,

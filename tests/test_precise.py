@@ -1,6 +1,6 @@
 """Compensated (double-float) reduction oracles (SURVEY hard-part 5).
 
-The f32 TPU path needs f64-grade dot products for the CG tolerance
+The f32 path needs f64-grade dot products for the CG tolerance
 contract (reference elasticity.c:504-507). dot2 must match an f64 dot of
 the same f32 values to ~f32 eps relative error even on ill-conditioned
 (heavy-cancellation) inputs where a naive f32 dot loses every digit.

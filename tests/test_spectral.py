@@ -32,7 +32,7 @@ def test_grad_matches_element_path_and_adjoint():
 
     # element-path reference: gather -> kron grad
     fac = OperatorFactory([fes], qextra=1, use_spectral=False,
-                          use_pallas=False, dtype=jnp.float64)
+                          dtype=jnp.float64)
     ue = fac.fine.restr.gather(u)
     du_ref = fac.fine.basis.apply_grad(ue)      # (3, 3, nelem, Q3)
     for c in range(3):
@@ -66,7 +66,6 @@ def test_spectral_matches_generic(problem):
 
     def patched(self, *a, **kw):
         kw["use_spectral"] = False
-        kw["use_pallas"] = False
         orig(self, *a, **kw)
 
     op_mod.OperatorFactory.__init__ = patched
